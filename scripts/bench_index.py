@@ -1,7 +1,7 @@
 """Index-build + block-vote throughput at genome scale.
 
-VERDICT round-1 asked for an index-build and votes/s benchmark at
->=100 Mb genome scale (SrchBlk/MakeBlk role).  Builds a synthetic
+An index-build and votes/s benchmark at >=100 Mb genome scale
+(SrchBlk/MakeBlk role), on the host.  Builds a synthetic
 genome of the requested size (random 45% GC with planted gene-like
 structure every ~50 kb so votes have real targets), times
 BlockIndex.build (native C++ builder when available) and

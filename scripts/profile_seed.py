@@ -1,9 +1,8 @@
 """Profile the host seed stage (wilip/find_hsps) at corpus-like geometry.
 
-The warm-gate stage split (PERF_NOTES round 4) shows seed as the binding
-constraint (62 s of 120 s for 200 queries).  This harness reproduces the
-per-query cost in isolation on Dicty-like AT-rich sequence so the hot
-lines can be attributed before optimizing.
+Seed is one of the two largest host stages of `map` (PERF.md).  This
+harness reproduces the per-query cost in isolation on Dicty-like AT-rich
+sequence so the hot lines can be attributed before optimizing.
 """
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
-"""spaln_tpu — a TPU-native spliced-alignment engine.
+"""spaln_tpu — a spliced-alignment engine for JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of ogotoh/spaln
-(reference at /root/reference): genome-wide mapping and spliced alignment of
+A from-scratch JAX/XLA framework with the capabilities of ogotoh/spaln:
+genome-wide mapping and spliced alignment of
 cDNA/EST and protein queries onto whole genomes via block-based k-mer seed
 search, Wilber-Lipman HSP chaining, and banded spliced DP with splice-signal
 PSSMs, coding-potential and intron-length-distribution scoring — implemented
-as batched anti-diagonal wavefront kernels on TPU.
+as batched anti-diagonal wavefront scans on the device (one NVIDIA GPU,
+or several with the query batch sharded).
 
 Package layout:
   seq/      sequence codec, FASTA IO, formatted genome store

@@ -2,7 +2,7 @@
 
 The role of Aln2b1's seeded driver + CalcServer fan-out (fwd2b1.cc:1405,
 calcserv.h): score one query against many DB entries and align the best
-hits.  TPU-native shape: all DB entries are one batched wavefront launch
+hits.  Batched shape: all DB entries are one batched wavefront launch
 (score-only), then the top hits get a traceback pass — no per-entry
 threading, just batch axes.
 """
@@ -107,7 +107,7 @@ def search_protein_local(query: np.ndarray, db: list,
                          cfg: Config | None = None) -> list[ProteinHit]:
     """SWG multi-local search (fwdswgB_ng + Colonies, fwd2b1.cc:734):
     every local-alignment island scoring >= vthr is reported, up to
-    max_out per DB entry.  TPU shape: one zero-floor local forward per
+    max_out per DB entry.  Batched shape: one zero-floor local forward per
     batch with per-step max emissions; colony ends are extracted on
     host (Colonies::detectoverlap role) and each traced back in the
     recorded planes."""

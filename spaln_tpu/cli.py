@@ -61,15 +61,14 @@ def _seed_level(args) -> int:
 
 def _apply_engine_opts(args) -> None:
     """-A/-V/-G wiring: engine force + memory/segment budgets."""
-    import os
     eng = getattr(args, "engine", None)
-    if eng:
-        os.environ["SPALN_ENGINE"] = {1: "scan", 2: "pallas",
-                                      3: "udh"}.get(eng, "")
-        if eng == 3:
-            os.environ["SPALN_UDH"] = "1"
-        elif eng == 1:
-            os.environ["SPALN_FUSE"] = "0"
+    if eng not in (None, 1, 3):
+        raise SystemExit(f"-A {eng} is not an engine: use -A 1 (scan, "
+                         "full traceback planes) or -A 3 (linear-space "
+                         "UDH)")
+    if eng == 3:
+        from .align import driver as _drv
+        _drv.FORCE_UDH = True
     if getattr(args, "vmf_budget", None):
         from .align import driver as _drv
         _drv.PLANE_BYTES_BUDGET = _ktoi(args.vmf_budget)
@@ -615,7 +614,8 @@ def cmd_seq(args) -> int:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="spaln_tpu",
-                                description="TPU-native spliced aligner")
+                                description="spliced aligner for cDNA and "
+                                            "protein queries")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
@@ -646,9 +646,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="algorithm level (spaln -Q): q&3 = seed "
                              "recursion depth, q>>2 = use block index")
         sp.add_argument("-A", dest="engine", type=int, default=None,
-                        help="engine select (spaln -A role): 1 scan, "
-                             "2 pallas/fused, 3 linear-space UDH; "
-                             "default auto")
+                        help="engine select (spaln -A role): 1 scan "
+                             "(linear-space UDH only past the -V plane "
+                             "budget, the default), 3 linear-space UDH "
+                             "for every multi-slab bucket")
         sp.add_argument("-V", dest="vmf_budget", default=None,
                         help="traceback-plane memory budget with k/M/G "
                              "suffix (MaxVmfSpace role, vmf.h:26-28)")
@@ -780,6 +781,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils.jaxcache import enable_compile_cache
+    enable_compile_cache()
     rc = args.func(args)
     if getattr(args, "metrics", False):
         from .utils.metrics import metrics

@@ -1,8 +1,9 @@
 """ctypes bindings for the native runtime (spaln_native.cpp).
 
-Loads (building on first use if the toolchain is present) the shared
-library with the parallel k-mer CSR builder and FASTA encoder; callers
-fall back to the numpy paths when unavailable.
+Builds the shared library from the committed source with ``make`` (which
+rebuilds only when spaln_native.cpp is newer than the library) and loads
+it on first use; callers fall back to the numpy paths when the toolchain
+is unavailable.
 """
 from __future__ import annotations
 
@@ -23,15 +24,11 @@ def get_lib():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.isfile(_SO):
-        try:
-            subprocess.run(["make", "-C", _DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
     try:
+        subprocess.run(["make", "-s", "-C", _DIR], check=True,
+                       capture_output=True, timeout=300)
         lib = ctypes.CDLL(_SO)
-    except OSError:
+    except (OSError, subprocess.SubprocessError):
         return None
     lib.kmer_csr.restype = ctypes.c_int64
     lib.kmer_csr.argtypes = [

@@ -3,7 +3,7 @@
 A faithful re-derivation of the reference's scalar recurrence
 (Aln2s1::forwardS_ng, fwd2s1.cc:217-444) including every comparison
 direction and tie-break (SURVEY.md A.4), used as the differential oracle
-for the TPU kernels.  Pure Python/numpy, intended for small test cases.
+for the device engines.  Pure Python/numpy, intended for small test cases.
 
 Coordinates: cells (m, n), m in 1..M over query a, n in 1..N over genome b,
 cell (m, n) consumes a[m-1], b[n-1].  Band r = n - m in [lw+1, up+1].
@@ -110,12 +110,15 @@ def forward_spliced_ref(a: np.ndarray, b: np.ndarray, prm: DpParams,
         lw=lw)
 
     # ---------------------------------------------------------------- init
+    # the band need not hold the origin: a mapping window starts a margin
+    # left of the gene (lw > 0), and only band slots r >= lw - 1 exist
     r0 = 0                                # origin r = b.left - a.left
-    H[r0 + off] = 0
-    tb.hdir[0, r0 + off] = 6              # origin marker
+    if lw - 1 <= r0:
+        H[r0 + off] = 0
+        tb.hdir[0, r0 + off] = 6          # origin marker
     if flags.a_exgl:                      # free genome prefix: top row = 0
         rr = min(up, N)
-        for r in range(r0 + 1, rr + 1):
+        for r in range(max(r0 + 1, lw - 1), rr + 1):
             H[r + off] = 0
             tb.hdir[0, r + off] = 1
     # left column (r < 0): free query prefix if b_exgl else gap costs
@@ -266,14 +269,16 @@ def forward_spliced_ref(a: np.ndarray, b: np.ndarray, prm: DpParams,
     # Final H band: index r <= r9 holds row-M cells (M, M+r); index r > r9
     # holds right-column cells (N-r, N) — the last write to each slot
     # (lastS_ng, fwd2s1.cc:188-215).
+    # The corner (M, N) may lie outside the band (then NEVSEL).
     r9 = N - M
-    best_val, best_m, best_n = H[r9 + off], M, N
+    best_val = H[r9 + off] if lw - 1 <= r9 <= up + 2 else NEVSEL
+    best_m, best_n = M, N
     if flags.a_exgr:                      # free genome suffix: max over row M
-        for r in range(max(lw, -M), r9):
+        for r in range(max(lw, -M), min(r9, up + 3)):
             if H[r + off] > best_val:
                 best_val, best_m, best_n = H[r + off], M, M + r
     if flags.b_exgr:                      # free query suffix: right column
-        for r in range(r9 + 1, min(up, N) + 1):
+        for r in range(max(r9 + 1, lw - 1), min(up, N) + 1):
             if H[r + off] > best_val:
                 best_val, best_m, best_n = H[r + off], N - r, N
     return int(best_val), best_m, best_n, tb

@@ -8,7 +8,7 @@ the thin strips between intermediates are re-aligned with full traceback
 state.  Memory drops from O(M*W) to O(n_imd*W) while the op stream stays
 bit-identical.
 
-TPU redesign: the intermediate rows ARE the wavefront engine's slab
+Wavefront redesign: the intermediate rows ARE the wavefront engine's slab
 boundaries (every L-th query row).  Three phases:
 
 1. links forward (dp_spliced_scan emit_links): every DP value carries a
@@ -48,34 +48,13 @@ _ROW_STREAM = 2                      # final-row (lane of row M)
 _RC_STREAM = 3                       # right column (n == N)
 
 
-def run_spliced_batch_udh(bp: BatchProblem, prm: DpParams,
-                          engine: str = "auto"):
+def run_spliced_batch_udh(bp: BatchProblem, prm: DpParams):
     """Full UDH pipeline over a prepared batch.
 
     Returns (scores, ends, ops_list) — op streams identical to the
-    full-plane ``traceback_spliced_scan`` path.
-
-    engine: 'pallas' runs the links forward on the Pallas kernel (the
-    production fast path; fwd2s1_simd.h mode-table role), 'scan' on the
-    lax.scan engine, 'auto' tries Pallas and falls back on any
-    constraint violation (dagp / local / cip / window too long for the
-    packed metadata or boundary bitmask)."""
-    traces = None
-    want_pallas = engine == "pallas" or (
-        engine == "auto" and jax.default_backend() != "cpu")
-    if want_pallas and not (
-            prm.dagp or bp.flags.local or bp.cip_all is not None):
-        try:
-            from .dp_spliced_pallas import run_spliced_batch_pallas
-            row_h, rc_h, traces = run_spliced_batch_pallas(
-                bp, prm, score_only=True, emit_links=True)
-        except (ValueError, AssertionError):
-            if engine == "pallas":
-                raise
-            traces = None
-    if traces is None:
-        row_h, rc_h, traces = run_spliced_batch(bp, prm, score_only=True,
-                                                emit_links=True)
+    full-plane ``traceback_spliced_scan`` path."""
+    row_h, rc_h, traces = run_spliced_batch(bp, prm, score_only=True,
+                                            emit_links=True)
     scores, ends, _ = collect_batch_results(bp, row_h, rc_h, None, True,
                                             prm=prm)
     links = [[np.asarray(st) for st in t[0]] for t in traces]

@@ -16,7 +16,7 @@ move at (m, n) scores mtx[a[m-1], btron[n-2]] + sigE[n-2].
 Splice phases: acceptors/donors fire at phs in {-1, 0, +1} with separate
 NCAND candidate lists per phase; phase +-1 junction codons are re-scored
 through the 256-entry junction tron tables.  SPIN flags block orphan
-exons.  Used as the differential oracle for the TPU tron kernel.
+exons.  Used as the differential oracle for the device tron engine.
 """
 from __future__ import annotations
 
@@ -191,10 +191,20 @@ def forward_tron_ref(a: np.ndarray, bn: np.ndarray, sig: TronSignals,
     def s_bonus(n):
         return sigS_at(n) if n <= loc_lo + 4 else 0
 
+    # the band need not hold the origin (a mapping window starts a margin
+    # left of the gene, lw > 0): the top row is a recurrence along n from
+    # the origin, so it is built on arrays widened to r >= -2 and the
+    # band's slots r >= lw - 2 are copied out
+    band = (H, Hd, off)
+    if lw > 0:
+        off = 2
+        H = np.full(up + 6, NEVSEL, dtype=np.int64)
+        Hd = np.zeros(up + 6, dtype=np.int32)
+    hdir0 = {}
     r0 = 0
     H[r0 + off] = max(s_bonus(1), 0) if flags.a_exgl else 0
     Hd[r0 + off] = DEAD if flags.a_exgl else DIAG
-    tb.hdir[0, r0 + off] = Hd[r0 + off]
+    hdir0[r0] = Hd[r0 + off]
     if flags.a_exgl:
         jnc = [0, 0, 0]
         rr = min(up, N)
@@ -222,7 +232,14 @@ def forward_tron_ref(a: np.ndarray, bn: np.ndarray, sig: TronSignals,
                 H[r + off] = x
                 Hd[r + off] = DEAD
                 jnc[i % 3] = n
-            tb.hdir[0, r + off] = Hd[r + off]
+            hdir0[r] = Hd[r + off]
+    if lw > 0:
+        (Hw, Hdw, offw), (H, Hd, off) = (H, Hd, off), band
+        H[:] = Hw[lw - 2 + offw:up + 4 + offw]
+        Hd[:] = Hdw[lw - 2 + offw:up + 4 + offw]
+    for r, d in hdir0.items():
+        if lw - 2 <= r <= up + 3:
+            tb.hdir[0, r + off] = d
     # left column (r < 0): free query prefix (b_exgl default)
     rr = max(lw, -3 * M)
     for i, r in enumerate(range(r0 - 1, rr - 1, -1), start=1):
@@ -489,8 +506,10 @@ def forward_tron_ref(a: np.ndarray, bn: np.ndarray, sig: TronSignals,
     # (fwd2h1.cc:608-613)
     if local_r and loc_best[0] > NEVSEL and loc_best[1] != M:
         return int(loc_best[0]), loc_best[1], loc_best[2], tb
+    # The corner (M, N) may lie outside the band (then NEVSEL).
     r9 = N - 3 * M
-    best_val, best_m, best_n = H[r9 + off], M, N
+    best_val = H[r9 + off] if lw - 2 <= r9 <= up + 3 else NEVSEL
+    best_m, best_n = M, N
     if flags.a_exgr:
         # simplified lastH: max over last-row cells and sigT-terminated ends
         glen = 0
@@ -506,7 +525,7 @@ def forward_tron_ref(a: np.ndarray, bn: np.ndarray, sig: TronSignals,
             if v > best_val:
                 best_val, best_m, best_n = v, M, n
     if flags.b_exgr:
-        for r in range(r9 + 1, min(up, N) + 1):
+        for r in range(max(r9 + 1, lw - 2), min(up, N) + 1):
             mm = (N - r) // 3
             if (N - r) % 3 == 0 and 1 <= mm < M:
                 if H[r + off] > best_val:

@@ -197,7 +197,7 @@ def locus_report(loci: list[Locus]) -> list[str]:
 # ---------------------------------------------------------------- O12 binary
 # The reference's -O12 writes GeneRecord/ExonRecord/name triples
 # (.grd/.erd/.qrd, seq.h:1212-1255) that sortgrcd merges across runs.
-# TPU-native equivalent: one compressed npz shard per run with columnar
+# Equivalent here: one compressed npz shard per run with columnar
 # gene/exon tables — append-only result shards + a merge step
 # (SURVEY.md section 5 checkpoint stance).
 

@@ -2,8 +2,8 @@
 
 The reference scales beyond one node only by external sharding — query
 subranges (`file (from to)`) or genome pieces run as independent jobs
-whose binary outputs sortgrcd merges (README.md:441-452).  The TPU-
-native equivalents keep the same durable-artifact contract:
+whose binary outputs sortgrcd merges (README.md:441-452).  The equivalents
+here keep the same durable-artifact contract:
 
 * **query sharding** (default): every host holds the full genome store
   + block index (host RAM; the index for a 3 Gb genome is a few GB of

@@ -3,7 +3,7 @@
 Reproduces PatMat (utilseq.cc:737-1000): text format header
 ``rows cols offset transvers skip min mean max nsupport`` followed by
 ``skip`` ignored lines and rows*cols floats.  The scan over a sequence is a
-gather + windowed sum over precomputed context codes — TPU-friendly (a
+gather + windowed sum over precomputed context codes — device-friendly (a
 one-hot conv1d), but PSSM scans only run over candidate gene windows, so the
 vectorized numpy path here is also fine host-side.
 

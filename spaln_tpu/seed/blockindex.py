@@ -5,7 +5,7 @@ The reference's phase-A mapper (blksrc.cc) cuts the genome into blocks of
 (CSR).  Queries vote for blocks with per-word information scores; paired
 left/right votes become candidate gene ranges.
 
-TPU-first re-design: the index is two flat int arrays (CSR offsets +
+Array-first re-design: the index is two flat int arrays (CSR offsets +
 block ids) plus an int16 word-score table — mmap-able, shardable by k-mer
 range across hosts, and gatherable on device.  Auto-sizing follows the
 reference's formulas (blksrc.cc:678-737): blklen ~ sqrt(genome), capped
@@ -23,6 +23,7 @@ import numpy as np
 from ..constants import AA_REDUCE20, NT_REDUCE4
 from ..seq.codec import comrev, translate
 from ..seq.genome import GenomeStore
+from ..utils.metrics import metrics
 from .wilip import _kmer_words
 
 
@@ -96,6 +97,8 @@ class BlockIndex:
         words, ok = _kmer_words(red, k)
         pos = np.nonzero(ok)[0]
         w = words[pos]
+        metrics.bump("index_builds_native" if native is not None
+                     else "index_builds_numpy")
         if native is not None:
             offsets, ub = native
         else:

@@ -3,7 +3,7 @@
 The reference's `spaln -a` builds a block index over the formatted aa DB
 (.bka) and SrchBlk::finds (blksrc.cc:3271+) votes query k-mers into
 per-entry tallies via Bhit2, so the expensive DP runs only on entries
-that share significant seed content with the query.  TPU-native shape:
+that share significant seed content with the query.  Array shape:
 the index is a host-side CSR (word -> entry ids) over the reduced
 20-letter alphabet with -log2-frequency word scores; a query is one
 vectorized gather + bincount, and the calibrated Randbs-style threshold

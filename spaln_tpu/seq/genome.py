@@ -1,6 +1,6 @@
 """Formatted genome/sequence-database store.
 
-TPU-native replacement of the reference's formatted DB (.seq/.idx/.ent/.grp,
+Array-native replacement of the reference's formatted DB (.seq/.idx/.ent/.grp,
 dbs.src:108-177 + makdbs): all contigs are concatenated into one flat int8
 code array (memory-mappable .npy) with NIL sentinels between contigs, plus a
 contig table (name, offset, length).  The flat array is what device kernels

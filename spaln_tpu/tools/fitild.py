@@ -3,7 +3,7 @@
 Fits an observed intron-length sample to a 1-3 component Frechet mixture
 by maximum likelihood (the reference uses GSL BFGS, ildpdf.h:45-120; here
 optax Adam on the negative log-likelihood with softmax weights and
-softplus-positive scale/shape — same model, TPU-native optimizer).
+softplus-positive scale/shape — same model, JAX-native optimizer).
 
 The fitted parameters feed IntronPenalty's ``-yI`` line
 (score/intron.py IldParams): components (a_i, m_i, t_i, k_i) with

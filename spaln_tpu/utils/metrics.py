@@ -1,6 +1,6 @@
 """Runtime metrics / tracing (the aux subsystem the reference lacks,
 SURVEY.md section 5: only TESTRAN stats and an index summary line exist
-there; a production TPU framework needs per-stage visibility).
+there; a batched accelerator pipeline needs per-stage visibility).
 
 Usage:
     from spaln_tpu.utils.metrics import metrics, stage
@@ -10,7 +10,7 @@ Usage:
     print(metrics.report())
 
 `jax_profile(path)` wraps a block in the JAX profiler (TensorBoard trace)
-for kernel-level inspection on real chips.
+for kernel-level inspection on the device.
 """
 from __future__ import annotations
 

@@ -240,3 +240,50 @@ def test_traceback_device_matches_host(cfg, prm, table_dir):
         host_ops = traceback_spliced_scan(btr[b], int(ends[b][0]),
                                           int(ends[b][1]))
         assert host_ops == dev_ops[b]
+
+
+@pytest.mark.parametrize("dagp", [False, True])
+def test_scan_batch_matches_oracle_per_problem_bands(cfg, table_dir, dagp):
+    """The mapping path's engine calls — one batch with per-problem band
+    placements (lws) at one common W, device traceback — against the
+    oracle, problem by problem.  Bands that hold the origin and bands
+    that start right of it (lw > 0, as every mapping window with a
+    margin does) must both be bit-identical; with dagp a long deletion
+    rides the E2/F2 states."""
+    import dataclasses
+    from spaln_tpu.ops.dp_spliced_scan import (
+        collect_batch_results, prepare_spliced_batch, run_spliced_batch,
+        traceback_device_batch)
+    if dagp:
+        cfg = dataclasses.replace(cfg, aln=dataclasses.replace(cfg.aln,
+                                                               ls=3))
+    prm = DpParams.build(cfg, Simmtx.dna(), CvsG,
+                         ipen=IntronPenalty(cfg, CvsG))
+    assert prm.dagp == dagp
+    rng = np.random.default_rng(2024)
+    qs, gs, sigs, lws = [], [], [], []
+    W = 384
+    for flank, lw_rel in ((0, None), (150, -30), (300, -60)):
+        q, g = _gene(rng, (60, 70), (120,), flank=(flank, 30), mut=0.02)
+        if dagp:
+            q = q[:20] + q[55:]               # 35-nt deletion in exon 1
+        qc, gc = encode_dna(q), encode_dna(g)
+        qs.append(qc)
+        gs.append(gc)
+        sigs.append(build_splice_signals(gc, cfg, table_dir))
+        lws.append(-len(qc) if lw_rel is None else flank + lw_rel)
+    assert max(lws) > 0
+    bp = prepare_spliced_batch(qs, gs, prm, sigs=sigs, lws=lws, W=W, L=32)
+    row_h, rc_h, traces = run_spliced_batch(bp, prm, score_only=False)
+    scores, ends, _ = collect_batch_results(bp, row_h, rc_h, None, True,
+                                            prm=prm)
+    dev_ops = traceback_device_batch(bp, traces, ends)
+    for i in range(bp.B):
+        wdw = Window(lws[i], lws[i] + W - 1)
+        s_r, em_r, en_r, tb_r = forward_spliced_ref(qs[i], gs[i], prm,
+                                                    sig=sigs[i], wdw=wdw)
+        assert (int(scores[i]), int(ends[i][0]), int(ends[i][1])) == \
+            (s_r, em_r, en_r), f"problem {i}"
+        assert dev_ops[i] == traceback_spliced_ref(tb_r, em_r, en_r), \
+            f"problem {i}"
+        assert any(op[0] == 'I' for op in dev_ops[i])

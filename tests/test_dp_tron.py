@@ -29,7 +29,7 @@ def cfg():
 
 @pytest.fixture(scope="module")
 def tron_prm(cfg, table_dir):
-    sm = Simmtx.protein("/root/reference/table", slot=0).tron()
+    sm = Simmtx.protein(table_dir.root, slot=0).tron()
     return TronDpParams.build(cfg, sm.mtx)
 
 
@@ -161,7 +161,7 @@ def test_tron_frameshift_deletion(cfg, tron_prm, ipen_tab, table_dir, rng):
 @pytest.fixture(scope="module")
 def tron_prm_dagp(cfg, table_dir):
     from dataclasses import replace
-    sm = Simmtx.protein("/root/reference/table", slot=0).tron()
+    sm = Simmtx.protein(table_dir.root, slot=0).tron()
     base = TronDpParams.build(cfg, sm.mtx)
     lgep = -int(0.6 * cfg.aln.scale)
     lgop = base.gop - (lgep - base.gep) * 7
@@ -241,3 +241,47 @@ def test_tron_dagp_intron_still_wins(cfg, tron_prm_dagp, ipen_tab,
     introns = [o for o in ops if o[0] == 'I']
     assert len(introns) == 1
     assert introns[0][2] == n5 and introns[0][3] == n3
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_tron_fused_batch_device_walk_matches_host_and_oracle(
+        cfg, tron_prm, ipen_tab, table_dir, local):
+    """The protein mapping path's engine calls at a tiny size: one batch
+    through the fused all-slab program, walked on device, against the
+    host plane walk and the scalar oracle — per-problem bands, one of
+    them starting right of the origin (lw > 0) as mapping windows do."""
+    from spaln_tpu.ops.dp_tron_scan import (collect_tron_results,
+                                            prepare_tron_batch,
+                                            run_tron_batch,
+                                            traceback_tron_device,
+                                            traceback_tron_scan)
+    rng = np.random.default_rng(77)
+    flags = DpFlags(local=local)
+    qs, gs, sigs, lws = [], [], [], []
+    W = 480
+    for flank in (0, 30, 90):
+        prot, genome, _ = _coding_gene(rng, n_aa=(14, 12), ilen=90)
+        gc = encode_dna(_backtranslate(rng.choice(AA_CODES, flank // 3))
+                        + genome)
+        qs.append(prot)
+        gs.append(gc)
+        sigs.append(build_tron_signals(gc, cfg, table_dir))
+        lws.append(flank - 12 if flank else -3 * len(prot))
+    assert max(lws) > 0
+    bp = prepare_tron_batch(qs, gs, sigs, tron_prm, ipen_tab, lws=lws,
+                            W=W, L=8, flags=flags)
+    row_np, rc_np, planes = run_tron_batch(bp, tron_prm, score_only=False,
+                                           keep_device=True)
+    res = collect_tron_results(bp, row_np, rc_np, planes, True)
+    dev_ops = traceback_tron_device(bp, planes, [(r[1], r[2]) for r in res])
+    row_h, rc_h, traces = run_tron_batch(bp, tron_prm, score_only=False)
+    res_h = collect_tron_results(bp, row_h, rc_h, traces, False)
+    for i in range(bp.B):
+        s, em, en, tr = res_h[i]
+        assert res[i][:3] == (s, em, en)
+        assert dev_ops[i] == traceback_tron_scan(tr, em, en), f"problem {i}"
+        s_r, em_r, en_r, tb_r = forward_tron_ref(
+            qs[i], gs[i], sigs[i], tron_prm, ipen_tab, lw=lws[i],
+            up=lws[i] + W - 2, flags=flags)
+        assert (s, em, en) == (s_r, em_r, en_r), f"problem {i}"
+        assert dev_ops[i] == traceback_tron_ref(tb_r, em_r, en_r)

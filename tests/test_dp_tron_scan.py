@@ -27,8 +27,8 @@ def cfg():
 
 
 @pytest.fixture(scope="module")
-def prm(cfg):
-    sm = Simmtx.protein("/root/reference/table", slot=0).tron()
+def prm(cfg, table_dir):
+    sm = Simmtx.protein(table_dir.root, slot=0).tron()
     return TronDpParams.build(cfg, sm.mtx)
 
 
@@ -162,9 +162,9 @@ def test_tron_scan_local_divergent(cfg, prm, ipen_tab, table_dir, rng):
 
 # ------------------------------------------------------------- dagp
 @pytest.fixture(scope="module")
-def prm_dagp(cfg):
+def prm_dagp(cfg, table_dir):
     from dataclasses import replace
-    sm = Simmtx.protein("/root/reference/table", slot=0).tron()
+    sm = Simmtx.protein(table_dir.root, slot=0).tron()
     base = TronDpParams.build(cfg, sm.mtx)
     lgep = -int(0.6 * cfg.aln.scale)
     lgop = base.gop - (lgep - base.gep) * 7
@@ -245,38 +245,9 @@ def test_tron_device_traceback_matches_host(cfg, prm, ipen_tab,
     res = collect_tron_results(bp, row_np, rc_np, traces, True)
     ops_dev = traceback_tron_device(bp, traces,
                                     [(r[1], r[2]) for r in res])
-    traces_np = [tuple(np.asarray(y) for y in t) for t in traces]
-    res_h = collect_tron_results(bp, row_np, rc_np, traces_np, False)
+    row_h, rc_h, traces_np = run_tron_batch(bp, prm, score_only=False)
+    res_h = collect_tron_results(bp, row_h, rc_h, traces_np, False)
     for b in range(3):
         s, em, en, tr = res_h[b]
         ops_host = traceback_tron_scan(tr, em, en)
         assert ops_dev[b] == ops_host
-
-
-def test_tron_fused_slabs_match_per_slab(cfg, prm, ipen_tab, table_dir,
-                                         rng, monkeypatch):
-    """SPALN_TRON_FUSE=force (one jit for all slabs) == per-slab runs."""
-    from spaln_tpu.ops.dp_tron_scan import (prepare_tron_batch,
-                                            run_tron_batch,
-                                            collect_tron_results)
-    aa1 = rng.choice(AA_CODES, 35)
-    aa2 = rng.choice(AA_CODES, 42)
-    intron = "GTAAGT" + "".join(rng.choice(list("ACGT"), 150)) + "TTTCTAG"
-    g = _bt(aa1) + intron + _bt(aa2)
-    q = np.concatenate([aa1, aa2]).astype(np.int8)
-    gc = encode_dna(g)
-    sig = build_tron_signals(gc, cfg, table_dir)
-    bp1 = prepare_tron_batch([q], [gc], [sig], prm, ipen_tab, L=16)
-    monkeypatch.setenv("SPALN_TRON_FUSE", "0")
-    r1, c1, t1 = run_tron_batch(bp1, prm, score_only=False)
-    res1 = collect_tron_results(bp1, r1, c1, t1, False)
-    bp2 = prepare_tron_batch([q], [gc], [sig], prm, ipen_tab, L=16)
-    monkeypatch.setenv("SPALN_TRON_FUSE", "force")
-    r2, c2, t2 = run_tron_batch(bp2, prm, score_only=False)
-    res2 = collect_tron_results(bp2, r2, c2, t2, False)
-    assert (res1[0][0], res1[0][1], res1[0][2]) == \
-        (res2[0][0], res2[0][1], res2[0][2])
-    assert np.array_equal(r1, r2)
-    for a_, b_ in zip(t1, t2):
-        for x, y in zip(a_, b_):
-            assert np.array_equal(np.asarray(x), np.asarray(y))

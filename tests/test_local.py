@@ -22,7 +22,7 @@ def test_local_two_islands(table_dir):
                + "".join(rng.choice(AAS, 20)))
     hits = search_protein_local(encode_protein(query),
                                 [("s", encode_protein(subject))],
-                                table_dir="/root/reference/table",
+                                table_dir=table_dir.root,
                                 max_out=4, lanes=32)
     assert len(hits) >= 2
     spans = sorted(h.s_span for h in hits[:2])
@@ -43,11 +43,11 @@ def test_local_score_matches_swg_oracle(table_dir):
          + "".join(rng.choice(AAS, 15)))
     hits = search_protein_local(encode_protein(q),
                                 [("s", encode_protein(s))],
-                                table_dir="/root/reference/table",
+                                table_dir=table_dir.root,
                                 max_out=1, lanes=16)
     assert hits
     cfg = resolve(Config(), PvsP)
-    sm = Simmtx.protein("/root/reference/table", slot=0)
+    sm = Simmtx.protein(table_dir.root, slot=0)
     from spaln_tpu.ops.params import DpParams
     prm = DpParams.build(cfg, sm, PvsP)
     gop, gep = prm.gop, prm.gep

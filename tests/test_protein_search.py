@@ -21,7 +21,7 @@ def test_protein_db_search_ranks_homolog(table_dir, rng):
     homolog = _mut(rng, target, 0.15)
     db.insert(7, ("homolog", encode_protein(homolog)))
     hits = search_protein_db(encode_protein(target), db,
-                             table_dir="/root/reference/table",
+                             table_dir=table_dir.root,
                              max_hits=5, align_top=1, lanes=32)
     assert hits[0].name == "homolog"
     assert hits[0].structure is not None
@@ -54,10 +54,10 @@ def test_protein_db_prefilter_matches_full(table_dir, rng):
         db.insert(11 * (j + 1), (f"hom{j}",
                                  encode_protein(_mut(rng, target, rate))))
     q = encode_protein(target)
-    full = search_protein_db(q, db, table_dir="/root/reference/table",
+    full = search_protein_db(q, db, table_dir=table_dir.root,
                              max_hits=4, align_top=0, lanes=32,
                              prefilter=False)
-    fast = search_protein_db(q, db, table_dir="/root/reference/table",
+    fast = search_protein_db(q, db, table_dir=table_dir.root,
                              max_hits=4, align_top=0, lanes=32,
                              prefilter=True)
     # every real (above-random) hit must survive the prefilter with an

@@ -165,7 +165,7 @@ def test_y_args_override(table_dir):
 def test_intron_penalty_kernel_chain_exact():
     """The DP kernels' compare/select chain (_pack_ipen runs) reproduces
     IntronPenalty.penalty EXACTLY for every length — the bucketed
-    quantization is gone (VERDICT round 1, item 3)."""
+    quantization is gone."""
     import numpy as np
     from spaln_tpu.config import Config, resolve, CvsG
     from spaln_tpu.ops.params import DpParams

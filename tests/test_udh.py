@@ -202,62 +202,54 @@ def test_udh_memory_shape(cfg, prm, table_dir):
         assert np.asarray(sn).shape == (1, bp.T + 2)
 
 
-def test_udh_pallas_links_bit_identity(cfg, prm, table_dir):
-    """The Pallas links forward (interpret mode on CPU) must reproduce
-    the scan engine's UDH results exactly: scores, ends, and op
-    streams (fwd2s1_simd.h mode-table parity for the links mode)."""
-    rng = np.random.default_rng(4242)
-    specs = [((60, 80), (150,)), ((40, 90, 40), (100, 90)),
-             ((120, 50), (250,))]
-    qs, gs, sigs = [], [], []
-    for exons, introns in specs:
-        q, g = _gene(rng, exons, introns, mut=0.03)
-        qs.append(encode_dna(q))
-        gs.append(encode_dna(g))
-        sigs.append(build_splice_signals(gs[-1], cfg, table_dir))
-    W = 512
-    lws = [-8, -16, -4]
-    bp = prepare_spliced_batch(qs, gs, prm, sigs=sigs, lws=lws, W=W, L=32)
-    s_ref, e_ref, ops_ref = run_spliced_batch_udh(bp, prm, engine="scan")
-    bp2 = prepare_spliced_batch(qs, gs, prm, sigs=sigs, lws=lws, W=W,
-                                L=32)
-    s_pl, e_pl, ops_pl = run_spliced_batch_udh(bp2, prm, engine="pallas")
-    for i in range(bp.B):
-        assert int(s_pl[i]) == int(s_ref[i])
-        assert tuple(e_pl[i]) == tuple(e_ref[i])
-        assert ops_pl[i] == ops_ref[i], f"problem {i}"
+def test_execute_jobs_names_the_engine_of_every_bucket(cfg, table_dir,
+                                                       monkeypatch):
+    """Each bucket is counted under the engine that ran it: the scan
+    engine with full planes and a device walk, or UDH past the plane
+    budget or under -A 3 (driver.FORCE_UDH).  No other engine exists."""
+    from spaln_tpu.align import driver as drv
+    from spaln_tpu.align.driver import (AlignerContext, execute_jobs,
+                                        prepare_job)
+    from spaln_tpu.utils.metrics import metrics
+    ctx = AlignerContext.create(table_dir)
+    rng = np.random.default_rng(31)
+    jobs = []
+    for _ in range(2):
+        q, g = _gene(rng, (50, 60), (120,), mut=0.02)
+        jobs.append(prepare_job(encode_dna(q), encode_dna(g), ctx, None))
+    engines = {"scan_buckets", "scan_jobs", "udh_buckets", "udh_jobs"}
+    runs = {}
+    for force in (False, True):
+        monkeypatch.setattr(drv, "FORCE_UDH", force)
+        metrics.reset()
+        res = execute_jobs(jobs, ctx, lanes=32)
+        c = dict(metrics.counters)
+        assert set(c) <= engines | {"jobs", "dp_cells", "dp_cells_real"}
+        runs[force] = (c, res, [j.dp for j in jobs])
+    (c0, r0, dp0), (c1, r1, dp1) = runs[False], runs[True]
+    assert c0["scan_buckets"] == 1 and c0["scan_jobs"] == 2
+    assert "udh_buckets" not in c0
+    assert c1["udh_buckets"] == 1 and c1["udh_jobs"] == 2
+    assert "scan_buckets" not in c1
+    assert dp0 == dp1 and all(d is not None for d in dp0)
+    for a, b in zip(r0, r1):
+        assert a.score == b.score
+        assert [(e.g_start, e.g_end) for e in a.exons] == \
+            [(e.g_start, e.g_end) for e in b.exons]
 
 
-def test_pallas_trace_bit_identity(cfg, prm, table_dir):
-    """The Pallas full-plane trace forward (forward+Vmf mode) must give
-    the same planes the scan engine emits: identical scores, ends, and
-    traceback op streams."""
-    from spaln_tpu.ops.dp_spliced_pallas import run_spliced_batch_pallas
-    rng = np.random.default_rng(515)
-    specs = [((60, 80), (150,)), ((40, 90, 40), (100, 90)),
-             ((120, 50), (250,))]
-    qs, gs, sigs = [], [], []
-    for exons, introns in specs:
-        q, g = _gene(rng, exons, introns, mut=0.03)
-        qs.append(encode_dna(q))
-        gs.append(encode_dna(g))
-        sigs.append(build_splice_signals(gs[-1], cfg, table_dir))
-    W = 512
-    lws = [-8, -16, -4]
-    bp = prepare_spliced_batch(qs, gs, prm, sigs=sigs, lws=lws, W=W, L=32)
-    row_h, rc_h, traces = run_spliced_batch(bp, prm, score_only=False)
-    s1, e1, btr1 = collect_batch_results(bp, row_h, rc_h, traces, False,
-                                         prm=prm)
-    bp2 = prepare_spliced_batch(qs, gs, prm, sigs=sigs, lws=lws, W=W,
-                                L=32)
-    row2, rc2, tr2 = run_spliced_batch_pallas(bp2, prm, score_only=False)
-    s2, e2, btr2 = collect_batch_results(bp2, row2, rc2, tr2, False,
-                                         prm=prm)
-    for i in range(bp.B):
-        assert int(s2[i]) == int(s1[i])
-        assert tuple(e2[i]) == tuple(e1[i])
-        ops1 = traceback_spliced_scan(btr1[i], int(e1[i][0]),
-                                      int(e1[i][1]))
-        ops2 = traceback_spliced_scan(btr2[i], int(e2[i][0]),
-                                      int(e2[i][1]))
-        assert ops2 == ops1, f"problem {i}"
+@pytest.mark.parametrize("engine", [1, 2, 3])
+def test_cli_engine_option(engine, monkeypatch):
+    """-A 1 keeps the automatic choice, -A 3 forces UDH, and -A 2 (an
+    engine that no longer exists) is refused with a message."""
+    from spaln_tpu import cli
+    from spaln_tpu.align import driver as drv
+    monkeypatch.setattr(drv, "FORCE_UDH", False)
+    args = cli.build_parser().parse_args(
+        ["map", "q.fa", "-d", "db", "-A", str(engine)])
+    if engine == 2:
+        with pytest.raises(SystemExit, match="not an engine"):
+            cli._apply_engine_opts(args)
+        return
+    cli._apply_engine_opts(args)
+    assert drv.FORCE_UDH == (engine == 3)
